@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Regex-parse PyRHE-TPU (or reference PyRHE) output files into summary.json
+"""Regex-parse PyRHE-JAX (or reference PyRHE) output files into summary.json
 (reference parse_output.py's role for the C++ RHE outputs)."""
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
-"""pyrhe_tpu — TPU-native randomized Haseman-Elston regression.
+"""pyrhe_tpu — randomized Haseman-Elston regression on an accelerator.
 
-A from-scratch JAX/XLA/Pallas implementation of genome-wide heritability
+A from-scratch JAX implementation of genome-wide heritability
 estimation with the capabilities of sriramlab/PyRHE: RHE (additive),
 RHE-DOM (additive+dominance) and GENIE (gene-environment) models, each with
 in-memory and streaming execution, jackknife standard errors, covariate

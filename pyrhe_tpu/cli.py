@@ -3,12 +3,14 @@
 Accepts the same ~30 argparse flags plus an INI `--config` overlay with
 type coercion against argparse defaults (reference run_rhe.py:13-26,
 158-220), and prints the same report schema so downstream regex parsers
-keep working. TPU-specific additions: --dtype, --tile_snps.
+keep working. Additions: --dtype, --profile_dir, --checkpoint_dir,
+--stage_streams, --cache_blocks, --host_cache_gb.
 """
 from __future__ import annotations
 
 import argparse
 import configparser
+import json
 import os
 import time
 
@@ -56,7 +58,7 @@ def convert_to_correct_type(value, default):
 
 
 def build_parser():
-    parser = argparse.ArgumentParser(description="PyRHE-TPU")
+    parser = argparse.ArgumentParser(description="PyRHE-JAX")
     parser.add_argument('--model', type=str, default="rhe",
                         choices=['rhe', 'genie', 'rhe_dom'])
     parser.add_argument('--genie_model', type=str, default="G+GxE+NxE",
@@ -91,7 +93,7 @@ def build_parser():
                         help='number of jackknife blocks')
     parser.add_argument('--seed', '-s', default=None, help='random seed')
     parser.add_argument('--device', type=str, default="auto",
-                        help='auto | cpu | tpu (reference names map to auto)')
+                        help='auto | cpu | gpu (reference names map to auto)')
     parser.add_argument('--cuda_num', type=int, default=None,
                         help='accepted for config compatibility (unused)')
     parser.add_argument('--output', '-o', type=str, default="test.out")
@@ -116,10 +118,9 @@ def build_parser():
                              'the last completed block')
     parser.add_argument('--checkpoint_every', type=int, default=1,
                         help='snapshot cadence in jackknife blocks/chunks')
-    parser.add_argument('--stage_streams', type=int, default=0,
-                        help='concurrent host->device staging transfers; '
-                             '0 = auto (6 on accelerators, 1 on CPU; '
-                             'measured in scripts/bench_staging.py)')
+    parser.add_argument('--stage_streams', type=int, default=1,
+                        help='host->device chunk transfers in flight '
+                             '(1 = one chunk staged ahead of the device)')
     parser.add_argument('--cache_blocks', type=int, default=-1,
                         help='stats-cache size in jackknife blocks '
                              '(per device when sharded): -1 auto-fits '
@@ -137,7 +138,7 @@ def build_parser():
 HEADER = [
     "##################################",
     "#                                #",
-    "#        PyRHE-TPU (v0.1.0)      #",
+    "#        PyRHE-JAX (v0.1.0)      #",
     "#                                #",
     "##################################",
 ]
@@ -236,19 +237,22 @@ def main(args):
         log._log(f"Profiler trace written to {args.profile_dir}")
 
     log._log("Runtime: ", runtime)
+    log._log("Phase times: " + json.dumps(rhe.engine.phase_times))
     log._save_log()
     return runtime
 
 
 def cli_entry(argv=None):
-    if os.environ.get("PYRHE_TPU_DISTRIBUTED") == "1":
+    if os.environ.get("COORDINATOR_ADDRESS"):
+        # multi-host run: every process joins jax.distributed before any
+        # JAX call (parallel/distributed.py); a failed join raises
         from .parallel import distributed as dist
         dist.initialize()
     parser = build_parser()
     args = parser.parse_args(argv)
     import jax
     if jax.process_count() > 1 and jax.process_index() != 0:
-        args.suppress = True        # one console report per pod, rank 0
+        args.suppress = True        # one console report per run, rank 0
     if args.config:
         config_args = parse_config(args.config, 'PyRHE_Config')
         for key, default in vars(args).items():

@@ -23,7 +23,7 @@ Phases advance precompute -> assemble -> done; `next_j` is the first
 jackknife block NOT yet covered by the stored state for the current
 phase. Resume validates a fingerprint of everything that shapes the
 numerics (dataset shapes + .bed identity, J/B/K, dtype, seed, model,
-streaming/pallas modes); a mismatch starts fresh after clearing OUR
+streaming/packed-scan modes); a mismatch starts fresh after clearing OUR
 files (only files matching the names above are ever touched).
 """
 from __future__ import annotations

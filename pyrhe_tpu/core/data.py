@@ -69,7 +69,7 @@ def load_dataset(
     log = log or Logger(debug_mode=False)
     rs = np.random.RandomState(seed)
 
-    num_indv_original, fam_df = read_fam(geno_file + ".fam")
+    num_indv_original, fam_rows = read_fam(geno_file + ".fam")
     num_snp = read_bim(geno_file + ".bim")
 
     if annot_file is None:
@@ -131,8 +131,8 @@ def load_dataset(
             f"{num_indv} kept individuals — the files do not describe "
             "the same cohort")
     for idx, mi in enumerate(missing_indv, start=1):
-        log._log(f"missing individual {idx}: FID:{fam_df.iloc[mi, 0]} "
-                 f"IID:{fam_df.iloc[mi, 1]}")
+        log._log(f"missing individual {idx}: FID:{fam_rows[mi][0]} "
+                 f"IID:{fam_rows[mi][1]}")
     log._log(f"Number of individuals after filtering: {num_indv}")
     if cov is not None:
         log._log(f"Number of covariates: {cov.shape[1]}")

@@ -2,13 +2,50 @@
 
 Behavioral spec: reference pyrhe/src/util/file_processing.py. Each reader
 reproduces the reference's missing-data semantics (NA / -9 handling, binary
-phenotype detection, FID/IID dropping, categorical one-hot side files) while
-being vectorized NumPy/pandas rather than per-line Python loops.
+phenotype detection, FID/IID dropping, categorical one-hot side files) with
+NumPy and the standard library alone.
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
-import pandas as pd
+
+# Tokens read as missing (NaN): the NA spellings of pandas.read_csv, which
+# the reference parses these files with.
+NA_TOKENS = frozenset({
+    "", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-NaN", "-nan",
+    "1.#IND", "1.#QNAN", "<NA>", "N/A", "NA", "NULL", "NaN", "None", "n/a",
+    "nan", "null"})
+
+
+def _to_float(tok: str, coerce: bool) -> float:
+    """One whitespace-separated field as float64: NA spellings are NaN;
+    anything else non-numeric is NaN when coerce, else an error."""
+    if tok in NA_TOKENS:
+        return math.nan
+    try:
+        return float(tok)
+    except ValueError:
+        if coerce:
+            return math.nan
+        raise
+
+
+def _read_table(filename: str, coerce: bool = False):
+    """Header line + body of a whitespace-separated table. Returns
+    (column names, float64 (rows, cols) array); short rows pad with NaN.
+    FID/IID columns are dropped."""
+    with open(filename, "r") as f:
+        rows = [ln.split() for ln in f if ln.strip()]
+    header, body = rows[0], rows[1:]
+    keep = [i for i, c in enumerate(header) if c not in ("FID", "IID")]
+    out = np.full((len(body), len(keep)), np.nan)
+    for r, cols in enumerate(body):
+        for k, i in enumerate(keep):
+            if i < len(cols):
+                out[r, k] = _to_float(cols[i], coerce)
+    return [header[i] for i in keep], out
 
 
 def read_bim(filename: str) -> int:
@@ -38,9 +75,11 @@ def read_bim(filename: str) -> int:
 
 
 def read_fam(filename: str):
-    """Return (num_individuals, fam dataframe). Reference file_processing.py:25-35."""
-    df = pd.read_csv(filename, sep=r"\s+", header=None)
-    return df.shape[0], df
+    """Return (num_individuals, rows of whitespace-split fields).
+    Reference file_processing.py:25-35."""
+    with open(filename, "r") as f:
+        rows = [ln.split() for ln in f if ln.strip()]
+    return len(rows), rows
 
 
 def read_annot(filename: str, num_jack: int | None = None):
@@ -135,49 +174,48 @@ def read_cov(
     from ..utils.types import CovImputeMethod
     CovImputeMethod(cov_impute_method)  # raises on unknown value
 
-    df = pd.read_csv(filename, sep=r"\s+")
+    names, num = _read_table(filename, coerce=True)
     missing_indvs = list(missing_indvs) if missing_indvs else []
+    rows = np.arange(num.shape[0])
     if missing_indvs:
-        df = df.drop(index=missing_indvs, errors="ignore")
-    for col in ("FID", "IID"):
-        if col in df.columns:
-            df = df.drop(col, axis=1)
+        keep = ~np.isin(rows, missing_indvs)
+        rows, num = rows[keep], num[keep]
 
-    num = df.apply(pd.to_numeric, errors="coerce")
-    is_missing = num.isna().any(axis=1) | (num == -9).any(axis=1)
-    newly_missing = df.index[is_missing].tolist()
+    is_missing = np.isnan(num).any(axis=1) | (num == -9).any(axis=1)
+    newly_missing = rows[is_missing].tolist()
 
     if cov_impute_method == "ignore":
-        df = num[~is_missing]
-    else:  # mean imputation
-        num = num.mask(num == -9)
-        df = num.fillna(num.mean())
+        num = num[~is_missing]
+    else:  # mean imputation over each column's observed values
+        num = np.where(num == -9, np.nan, num)
+        num = np.where(np.isnan(num), np.nanmean(num, axis=0), num)
         newly_missing = []
 
     all_missing = missing_indvs + newly_missing
 
     if one_hot_conversion:
-        for column in df.columns:
-            nuniq = df[column].nunique()
-            if nuniq <= categorical_threshold:
+        for c, column in enumerate(names):
+            vals = num[:, c]
+            levels = np.unique(vals[~np.isnan(vals)])
+            if len(levels) <= categorical_threshold:
                 if logger:
                     logger._debug(
-                        f"Column '{column}' detected as categorical with {nuniq} unique values."
+                        f"Column '{column}' detected as categorical with {len(levels)} unique values."
                     )
-                one_hot = pd.get_dummies(df[column], prefix=column).astype(int)
+                one_hot = (vals[:, None] == levels[None, :]).astype(int)
                 out_name = f"{column}_one_hot.cov"
                 if one_hot_dir is not None:
                     out_name = os.path.join(one_hot_dir, out_name)
-                one_hot.to_csv(out_name, index=False, sep=" ", header=False)
+                np.savetxt(out_name, one_hot, fmt="%d", delimiter=" ")
                 if logger:
                     logger._debug(
                         f"One-hot encoded values for '{column}' stored in '{out_name}'"
                     )
 
     if std:
-        df = (df - df.mean()) / df.std(ddof=1)
+        num = (num - num.mean(axis=0)) / num.std(axis=0, ddof=1)
 
-    return df.values.astype(np.float64), all_missing
+    return num.astype(np.float64), all_missing
 
 
 def read_env_file(file_path: str):
@@ -189,11 +227,5 @@ def read_env_file(file_path: str):
     num_env > 1 actually works — identical behavior for the tested
     num_env == 1 case.
     """
-    df = pd.read_csv(file_path, sep=r"\s+")
-    for col in ("FID", "IID"):
-        if col in df.columns:
-            df = df.drop(col, axis=1)
-    env = df.to_numpy(dtype=np.float64)
-    if env.ndim == 1:
-        env = env[:, None]
+    _, env = _read_table(file_path)
     return env.shape[1], env

@@ -1,4 +1,4 @@
-"""Reference-compatible model classes wrapping the TPU engine.
+"""Reference-compatible model classes wrapping the estimation engine.
 
 API parity: construct with file paths + hyperparams, then call
 `model(trait, method="QR")` per trait (reference base.py:24-48,874-886).
@@ -7,8 +7,8 @@ Unlike the reference, the expensive precompute runs ONCE for all traits
 the first are nearly free.
 
 Accepted-but-inert reference knobs (no multiprocessing/shm in this design):
-`num_workers`, `multiprocessing`, `cuda_num`. `device` maps
-"cpu"/"cuda"/"gpu"/"tpu" onto the available JAX backend.
+`num_workers`, `multiprocessing`, `cuda_num`. `device` "cuda"/"gpu"
+map onto the accelerator JAX finds, "cpu" onto the CPU.
 """
 from __future__ import annotations
 
@@ -66,9 +66,8 @@ class BaseModel:
         self.samp_prev = samp_prev
         self.pop_prev = pop_prev
         self.genie_model = genie_model
-        if device in ("cuda", "gpu"):
-            # reference device names; we run wherever JAX has an accelerator
-            device = "auto"
+        if device == "cuda":
+            device = "gpu"      # the reference's name for the same card
         elif device == "cpu":
             from ..utils.platform import ensure_platform
             ensure_platform("cpu", dtype)
@@ -158,11 +157,11 @@ class BaseModel:
         """Use the mesh-sharded path automatically under multi-process
         (jax.distributed) execution or whenever more than one accelerator
         device is visible (a single-process multi-chip host would
-        otherwise leave chips idle). PYRHE_TPU_DISTRIBUTED=1 forces it,
+        otherwise leave cards idle). PYRHE_DISTRIBUTED=1 forces it,
         =0 disables it. Any num_jack works — the jack axis is padded to
         the mesh size."""
         import jax
-        forced = os.environ.get("PYRHE_TPU_DISTRIBUTED")
+        forced = os.environ.get("PYRHE_DISTRIBUTED")
         if forced == "0":
             return False
         if jax.process_count() > 1:
@@ -171,7 +170,7 @@ class BaseModel:
         if n_dev <= 1:
             if forced == "1":
                 self.log._log(
-                    "Note: PYRHE_TPU_DISTRIBUTED set but only one device "
+                    "Note: PYRHE_DISTRIBUTED set but only one device "
                     "is visible; running the sequential engine")
             return False
         return forced == "1" or jax.devices()[0].platform != "cpu"

@@ -1,4 +1,4 @@
-"""On-device PLINK 2-bit decode + imputation (jnp; Pallas variant in kernels.py).
+"""On-device PLINK 2-bit decode + imputation.
 
 Feeding raw packed bytes to the device and unpacking in-register moves 16x
 less data over PCIe than shipping f32 dosages (and 4x less than uint8).

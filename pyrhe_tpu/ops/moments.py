@@ -20,17 +20,17 @@ genie.py:61-75 materializes X ⊙ env instead).
 
 Precision modes (mm_mode): dosages are small integers, EXACT in bfloat16,
 so only the probe-side operand limits accuracy:
-  - "exact":  full-precision dot in the working dtype (CPU float64 parity)
-  - "split2": probe operand split into bf16 hi+lo, two MXU passes with f32
-              accumulation (~1e-5 relative — beyond statistical noise) —
-              the TPU float32 default, ~3x cheaper than XLA's 6-pass
-              HIGHEST since the dosage side needs no splitting
+  - "exact":  full-precision dot in the working dtype (float32 HIGHEST,
+              or float64 on the CPU for parity)
+  - "split2": probe operand split into bf16 hi+lo, side by side in ONE
+              tensor-core pass with f32 accumulation (~1e-5 relative —
+              beyond statistical noise) — the float32 default; the dosage
+              side needs no split
   - "bf16":   single pass (~1e-3 relative), fastest
 
 Compared to the reference's per-(bin, probe) matvec loop (rhe.py:13-22 +
 base.py:403-417 + mat_mul.py:17-48 with per-call numpy->torch->device
-round trips), one block here is two MXU matmuls at ~m*N bf16 bytes of HBM
-traffic.
+round trips), one block here is two wide matmuls.
 """
 from __future__ import annotations
 
@@ -40,6 +40,22 @@ import jax
 import jax.numpy as jnp
 
 from .decode import decode_packed_jnp, dosage_from_u8, impute
+
+
+def split_hi_lo(x):
+    """float32 x -> (hi, lo) bf16 with x ~= hi + lo to ~16 bits.
+
+    hi rounds x to bf16 in integer arithmetic on its bit pattern (add
+    half an ulp, clear the low 16 bits), so hi is exact in bf16 and
+    x - hi is exact in float32. The obvious x - f32(bf16(x)) is not safe
+    under XLA: with excess precision allowed (the GPU default) the
+    simplifier drops the convert pair and the lo half becomes zero,
+    silently reducing split2 to one bf16 pass."""
+    x = x.astype(jnp.float32)
+    bits = jax.lax.bitcast_convert_type(x, jnp.uint32)
+    hi = jax.lax.bitcast_convert_type(
+        (bits + jnp.uint32(0x8000)) & jnp.uint32(0xFFFF0000), jnp.float32)
+    return hi.astype(jnp.bfloat16), (x - hi).astype(jnp.bfloat16)
 
 
 def _mm(a, b, mm_mode, out_dtype):
@@ -53,12 +69,12 @@ def _mm(a, b, mm_mode, out_dtype):
         return jnp.dot(a.astype(jnp.bfloat16), b.astype(jnp.bfloat16),
                        preferred_element_type=jnp.float32)
     if mm_mode == "split2":
-        ab = a.astype(jnp.bfloat16)
-        hi = b.astype(jnp.bfloat16)
-        lo = (b - hi.astype(b.dtype)).astype(jnp.bfloat16)
-        return (jnp.dot(ab, hi, preferred_element_type=jnp.float32)
-                + jnp.dot(ab, lo, preferred_element_type=jnp.float32)
-                ).astype(out_dtype)
+        # hi|lo side by side: ONE pass over the dosage operand
+        W = b.shape[1]
+        out = jnp.dot(a.astype(jnp.bfloat16),
+                      jnp.concatenate(split_hi_lo(b), axis=1),
+                      preferred_element_type=jnp.float32)
+        return (out[:, :W] + out[:, W:]).astype(out_dtype)
     raise ValueError(f"unknown mm_mode {mm_mode}")
 
 
@@ -67,17 +83,7 @@ def _colsum(x):
     return jnp.sum(x, axis=0)
 
 
-def _hilo(R32, axis):
-    """split2 operand prep: hi/lo bf16 halves packed side by side, so the
-    f32-accuracy path costs ONE MXU pass over a doubled operand."""
-    hi = R32.astype(jnp.bfloat16)
-    lo = (R32 - hi.astype(jnp.float32)).astype(jnp.bfloat16)
-    return jnp.concatenate([hi, lo], axis=axis)
-
-
-# Standardization scalars + per-component U rows, shared between
-# _moment_algebra and block_stats_pallas_acc_core — ONE definition, so the
-# aliased fast path's bit-identity with the standard path cannot drift.
+# Standardization scalars + per-component U rows used by _moment_algebra.
 def _add_scale(mean):
     """Additive scale 1/sqrt(2p(1-p)) from the column mean (= 2p)."""
     var_add = mean * (1.0 - 0.5 * mean)
@@ -126,9 +132,8 @@ def _stage1_cols(components, P, env, mask_col):
 
 
 def _component_stats(kind, U, annot_f, b2, d, mean_stat, alpha=None):
-    """Per-component yXXy entry and stage-2 operands from the U rows —
-    ONE definition consumed by both _moment_algebra and the aliased acc
-    core. Returns (ys, Y_g, Y_g2, rank1): Y_g rides the g contraction,
+    """Per-component yXXy entry and stage-2 operands from the U rows.
+    Returns (ys, Y_g, Y_g2, rank1): Y_g rides the g contraction,
     Y_g2 (dominance only, else None) the g² one; rank1 is the
     standardization fold's correction row."""
     m, K = annot_f.shape
@@ -155,13 +160,22 @@ def block_stats_core(
     packed: bool,
     dtype=jnp.float32,
     mm_mode: str = "exact",
+    valid_mask=None,     # (N,) 1.0 at kept individuals, or None (all)
 ):
     """Returns (XXP (n_comp*K, N, b2), yXXy (n_comp*K, T), M (n_comp*K,)).
 
-    Un-jitted core, reused under jit (block_stats) and under
-    vmap/shard_map in the multi-device path (pyrhe_tpu.parallel)."""
+    The N = P.shape[0] columns decoded are the individuals of the probe
+    matrix. With valid_mask, rows of the .bed population that were
+    filtered out (missing phenotype/covariate) are decoded but carry zero
+    weight: the mask replaces the stage-1 ones column (so means and
+    variances cover the n_indiv kept individuals only) and zeroes their
+    stage-2 output rows, and P/env hold zero rows there.
+
+    Un-jitted core, reused under jit (block_stats), lax.scan (the chunked
+    drivers) and shard_map (pyrhe_tpu.parallel)."""
+    N = P.shape[0]
     if packed:
-        g, miss = decode_packed_jnp(geno, n_indiv, dtype)
+        g, miss = decode_packed_jnp(geno, N, dtype)
     else:
         g, miss = dosage_from_u8(geno, dtype)
     g = impute(g, miss, fill)
@@ -170,23 +184,20 @@ def block_stats_core(
 
     need_dom = any(kind == "dom" for kind, _ in components)
     g2 = (g * g) if need_dom else None
-    N = g.shape[1]
     mm1 = lambda which, C: _mm(g if which == "g" else g2, C, mm_mode, dtype)
     mm2 = lambda which, Y: _mm((g if which == "g" else g2).T, Y, mm_mode,
                                dtype)
     return _moment_algebra(mm1, mm2, N, annot_f, P, env,
                            n_indiv=n_indiv, components=components, b2=b2,
-                           dtype=dtype, valid_mask=None)
+                           dtype=dtype, valid_mask=valid_mask)
 
 
 def _moment_algebra(mm1, mm2, N, annot_f, P, env, *, n_indiv, components,
-                    b2, dtype, valid_mask=None, mm2_t=False):
-    """Shared post-matmul algebra. mm1(which, C) computes g@C / g2@C over
-    an (N, W) right operand; mm2(which, Y) computes g^T@Y / g2^T@Y over an
-    (m, Q) right operand, returning N rows (padded rows masked by
-    valid_mask when the matmuls run in padded/permuted layout). With
-    mm2_t, mm2 returns the TRANSPOSED (Q, N) result (the Pallas ytg
-    kernel's native output layout — avoids relayouting the decoded tile)."""
+                    b2, dtype, valid_mask=None):
+    """Post-matmul algebra. mm1(which, C) computes g@C / g2@C over an
+    (N, W) right operand; mm2(which, Y) computes g^T@Y / g2^T@Y over an
+    (m, Q) right operand, returning N rows (rows of filtered individuals
+    zeroed by valid_mask)."""
     m, K = annot_f.shape
     Bp = P.shape[1]
 
@@ -227,7 +238,7 @@ def _moment_algebra(mm1, mm2, N, annot_f, P, env, *, n_indiv, components,
 
     # ---- stage 2: one wide g^T matmul (+ one g2^T matmul for dominance) ----
     YG = jnp.concatenate(Y_g_list, axis=1)         # (m, n_comp*K*b2)
-    XXG = mm2("g", YG)                      # (N, Q) or (Q, N) when mm2_t
+    XXG = mm2("g", YG)                             # (N, Q)
     dom_cols = [y for y in Y_g2_list if y is not None]
     XXG2 = mm2("g2", jnp.concatenate(dom_cols, axis=1)) if dom_cols else None
 
@@ -235,18 +246,6 @@ def _moment_algebra(mm1, mm2, N, annot_f, P, env, *, n_indiv, components,
     q = K * b2
     dom_off = 0
     for i, (kind, eidx) in enumerate(components):
-        if mm2_t:
-            part = XXG[i * q:(i + 1) * q]          # (q, N)
-            if kind == "dom":
-                part = part + XXG2[dom_off * q:(dom_off + 1) * q]
-                dom_off += 1
-            part = part - rank1_list[i][:, None]
-            if scales[i] is not None:
-                part = part * scales[i][None, :].astype(part.dtype)
-            if valid_mask is not None:
-                part = part * valid_mask[None, :].astype(part.dtype)
-            XXPs.append(part.reshape(K, b2, N).transpose(0, 2, 1))
-            continue
         part = XXG[:, i * q:(i + 1) * q]
         if kind == "dom":
             part = part + XXG2[:, dom_off * q:(dom_off + 1) * q]
@@ -269,273 +268,6 @@ block_stats = partial(
     static_argnames=("n_indiv", "components", "b2", "packed", "dtype",
                      "mm_mode"),
 )(block_stats_core)
-
-
-def block_stats_pallas_core(
-    packed,         # (m_pad, nb_pad) u8, rows zero-padded
-    fill,           # (m_pad,) imputation fill values
-    annot_f,        # (m_pad, K), zero rows for padded SNPs
-    P_perm,         # (n_pad, Bp) probes in plane-permuted order, zero pads
-    env_perm,       # (n_pad, num_env) plane-permuted, or None
-    valid_mask,     # (n_pad,) 1.0 for real individuals, 0.0 for pads
-    *,
-    n_indiv: int,
-    components: tuple,
-    b2: int,
-    dtype=jnp.float32,
-    kernel_dtype=jnp.bfloat16,
-    mm_split: bool = False,
-    clean: bool = False,
-    interpret: bool = False,
-    tm: int = 256,
-    tn: int = 512,
-    word: bool = False,
-    ytg_planewise: bool | None = None,
-):
-    """block_stats via the fused decode+matmul Pallas kernels
-    (ops/kernels.py). Inputs follow the plane-permutation contract; the
-    returned XXP rows are in the same permuted order, which is invisible
-    downstream because every consumer contracts over individuals with
-    equally-permuted arrays.
-
-    mm_split=True recovers ~f32 accuracy with bf16 MXU passes on a hi/lo
-    split of the probe-side operand (split2). clean=True promises the
-    packed bytes hold NO missing codes (io/bed.clean_packed rewrote them
-    with the integral imputation fills), enabling the 4-op SWAR decode.
-    word=True additionally takes `packed` as little-endian int32 WORDS
-    (the cleaned bytes .view(int32): 16 codes per lane, 4x fewer decode
-    ops; P/env/mask must use the 16-plane permutation). Stage 2 always
-    feeds the small operand pre-transposed (ytg_matmul) so no decoded
-    tile is ever relayouted."""
-    from .kernels import gp_matmul, ytg_matmul
-
-    fill2 = fill[:, None].astype(jnp.float32)
-    N = P_perm.shape[0]
-    split = mm_split and kernel_dtype == jnp.bfloat16
-
-    def run1(which, C):
-        """split2 packs the probe-side hi/lo bf16 halves side by side so the
-        f32-accuracy path costs ONE MXU pass over a 2W-wide operand (vs two
-        W-wide passes): ceil(2W/128) <= 2*ceil(W/128) lane tiles always."""
-        C32 = C.astype(jnp.float32)
-        if split:
-            out = gp_matmul(packed, fill2, _hilo(C32, 1), tm=tm, tn=tn,
-                            dtype=kernel_dtype, interpret=interpret,
-                            square=(which == "g2"), clean=clean, word=word)
-            W = C.shape[1]
-            return (out[:, :W] + out[:, W:]).astype(dtype)
-        return gp_matmul(packed, fill2, C32, tm=tm, tn=tn,
-                         dtype=kernel_dtype, interpret=interpret,
-                         square=(which == "g2"), clean=clean,
-                         word=word).astype(dtype)
-
-    def run2(which, Y):
-        Yt = Y.astype(jnp.float32).T               # (Q, m) — small relayout
-        # auto planewise: one dot per decoded plane while the lhs rows
-        # (split doubles them) underfill an MXU sublane tile — measured
-        # crossover on v5e: narrow Q=10/20 pw wins ~+12%, wide Q=160/320
-        # the single concatenated-planes pass wins +25% isolated
-        # (docs/design/perf.md round-4 decomposition)
-        rows = Yt.shape[0] * (2 if split else 1)
-        pw = ytg_planewise if ytg_planewise is not None else rows < 64
-        if split:
-            out = ytg_matmul(packed, fill2, _hilo(Yt, 0), tm=tm, tn=tn,
-                             dtype=kernel_dtype, interpret=interpret,
-                             square=(which == "g2"), clean=clean,
-                             word=word, planewise=pw)
-            Q = Yt.shape[0]
-            return (out[:Q] + out[Q:]).astype(dtype)
-        # _ytg_kernel uses the lhs operand as-is (only the rhs is cast);
-        # cast the probe side to the kernel dtype here
-        return ytg_matmul(packed, fill2, Yt.astype(kernel_dtype),
-                          tm=tm, tn=tn, dtype=kernel_dtype,
-                          interpret=interpret, square=(which == "g2"),
-                          clean=clean, word=word,
-                          planewise=pw).astype(dtype)
-
-    return _moment_algebra(run1, run2, N, annot_f, P_perm, env_perm,
-                           n_indiv=n_indiv, components=components, b2=b2,
-                           dtype=dtype, valid_mask=valid_mask, mm2_t=True)
-
-
-block_stats_pallas = partial(
-    jax.jit,
-    static_argnames=("n_indiv", "components", "b2", "dtype", "kernel_dtype",
-                     "mm_split", "clean", "interpret", "tm", "tn", "word",
-                     "ytg_planewise"),
-)(block_stats_pallas_core)
-
-
-def block_stats_pallas_acc_core(
-    packed,         # (m_pad, nb_pad) u8 / int32 words, rows zero-padded
-    fill,           # (m_pad,)
-    annot_f,        # (m_pad, K)
-    P_perm,         # (n_pad, Bp) plane-permuted probes
-    env_perm,       # (n_pad, num_env) plane-permuted, or None
-    valid_mask,     # (n_pad,)
-    tot_list,       # per-component (K*b2, n_pad) f32 totals, KERNEL layout
-    *,
-    n_indiv: int,
-    components: tuple,   # ("add"|"dom", eidx) — dom via ytg_acc2_matmul
-    b2: int,
-    dtype=jnp.float32,
-    kernel_dtype=jnp.bfloat16,
-    mm_split: bool = False,
-    clean: bool = False,
-    interpret: bool = False,
-    tm: int = 256,
-    tn: int = 512,
-    word: bool = False,
-):
-    """Specialization of block_stats_pallas_core whose stage 2 ALIASES
-    the running totals into the kernel (ops/kernels.ytg_acc_matmul;
-    ytg_acc2_matmul for dominance components, whose stats need a second
-    g² contraction): the per-block (Q, N) stats tensor is never
-    materialized in HBM, folding the out-of-kernel
-    rank-1/env-scale/mask transform and the totals read-modify-write
-    into the kernel epilogue — one kernel call per component, each
-    updating its own totals array in place (GxE components pass their
-    env column as the kernel's scale operand). Only usable where nothing
-    needs the per-block stats — the keep=False scan bodies (streaming
-    pass 1 / hybrid tail); the engine falls back to
-    block_stats_pallas_core everywhere else (cached chunks, float64).
-    Bit-identical to the standard path: identical dot order, identical
-    f32 elementwise transform order (rank1 − → ×scale → ×mask, with
-    ×1.0 an IEEE identity for scale-free components; dominance skips
-    the scale exactly as _moment_algebra does), identical accumulate
-    order.
-
-    One kernel call per component means stage 2 re-reads + re-decodes
-    the packed bytes once per component. That extra pass is the packed
-    bytes (m*N/4) vs the ~3 f32 stats passes (12 m*N-equivalent bytes)
-    the fold removes — a clear net win at small component counts, eroding
-    linearly for many-env GENIE runs. The stacked single-call alternative
-    (per-row-group scale apply) would keep one decode but multiplies the
-    (Qr, tn) VMEM accumulator by n_comp — rejected for VMEM headroom at
-    the wide production shape.
-
-    Returns ([per-component new (K*b2, n_pad) f32 totals],
-    yXXy (n_comp*K, T))."""
-    from .kernels import gp_matmul, ytg_acc2_matmul, ytg_acc_matmul
-
-    fill2 = fill[:, None].astype(jnp.float32)
-    m, K = annot_f.shape
-    Bp = P_perm.shape[1]
-    split = mm_split and kernel_dtype == jnp.bfloat16
-    # fail loudly on component kinds this core has no epilogue for: the
-    # dom kernel applies no env scale (no model builds env-scaled
-    # dominance), and an unknown kind must not fall into the dom branch
-    assert all(kind == "add" or (kind == "dom" and eidx is None)
-               for kind, eidx in components), components
-    need_dom = any(kind == "dom" for kind, _ in components)
-    n_dom = sum(1 for kind, _ in components if kind == "dom")
-
-    # ---- stage 1 + standardization algebra (shared helpers — the same
-    # definitions _moment_algebra consumes, so the two paths cannot
-    # drift) ----
-    variants, C_all = _stage1_cols(components, P_perm, env_perm,
-                                   valid_mask[:, None].astype(dtype))
-    csum = _colsum(C_all)
-    C32 = C_all.astype(jnp.float32)
-
-    def stage1(square):
-        if split:
-            out = gp_matmul(packed, fill2, _hilo(C32, 1), tm=tm, tn=tn,
-                            dtype=kernel_dtype, interpret=interpret,
-                            square=square, clean=clean, word=word)
-            Wc = C_all.shape[1]
-            return (out[:, :Wc] + out[:, Wc:]).astype(dtype)
-        return gp_matmul(packed, fill2, C32, tm=tm, tn=tn,
-                         dtype=kernel_dtype, interpret=interpret,
-                         square=square, clean=clean, word=word
-                         ).astype(dtype)
-
-    GP = stage1(False)
-    G2P = stage1(True) if need_dom else None
-    mean = GP[:, 0] / n_indiv
-    d_add = _add_scale(mean)
-    if need_dom:
-        d_dom, alpha, mean_enc = _dom_scales(mean, G2P[:, 0] / n_indiv)
-
-    ones_n = jnp.ones((1, P_perm.shape[0]), jnp.float32)
-    mask_row = valid_mask[None, :].astype(jnp.float32)
-    prep = lambda Y: (_hilo(Y.astype(jnp.float32).T, 0) if split
-                      else Y.astype(jnp.float32).T.astype(kernel_dtype))
-    new_tots, ys = [], []
-    for c, (kind, eidx) in enumerate(components):
-        v = variants.index(eidx)
-        sl = slice(1 + v * Bp, 1 + (v + 1) * Bp)
-        acc_kw = dict(tm=tm, tn=tn, dtype=kernel_dtype,
-                      interpret=interpret, clean=clean, word=word,
-                      split=split)
-        if kind == "add":
-            U = _u_add(d_add, mean, GP[:, sl], csum[sl])
-            ys_e, Yg, _, rank1 = _component_stats("add", U, annot_f, b2,
-                                                  d_add, mean)
-            ys.append(ys_e)
-            Yt = prep(Yg)
-            # planewise rule must reproduce the STANDARD path's decision,
-            # which sees ALL components' g-side columns stacked in one
-            # operand (run2's rows = n_comp*K*b2*(2 if split)); output
-            # rows of a dot are independent, so per-component calls under
-            # the same blocking stay bitwise equal to the stacked call
-            pw = len(components) * Yt.shape[0] < 64
-            scale = (ones_n if eidx is None
-                     else env_perm[:, eidx][None, :].astype(jnp.float32))
-            new_tots.append(ytg_acc_matmul(
-                packed, fill2, Yt, rank1[:, None].astype(jnp.float32),
-                scale, mask_row, tot_list[c], planewise=pw, **acc_kw))
-        else:
-            U = _u_dom(d_dom, alpha, mean_enc, GP[:, sl], G2P[:, sl],
-                       csum[sl])
-            ys_e, Y1, Y2, rank1 = _component_stats("dom", U, annot_f, b2,
-                                                   d_dom, mean_enc, alpha)
-            ys.append(ys_e)
-            Yt1 = prep(Y1)                         # rides the g dot
-            Yt2 = prep(Y2)                         # rides the g^2 dot
-            # the g dot rides the all-components stacked operand; the
-            # g^2 dot's standard call stacks only the dominance columns
-            pw = len(components) * Yt1.shape[0] < 64
-            pw2 = n_dom * Yt2.shape[0] < 64
-            new_tots.append(ytg_acc2_matmul(
-                packed, fill2, Yt1, Yt2,
-                rank1[:, None].astype(jnp.float32), mask_row,
-                tot_list[c], planewise=pw, planewise2=pw2, **acc_kw))
-    return new_tots, jnp.concatenate(ys, axis=0).astype(dtype)
-
-
-def acc_scan_stats(chunk_arrays, P, env, mask, totX, toty, *, K,
-                   components, **acc_kw):
-    """lax.scan over stacked (packed, fill, annot) blocks through the
-    ALIASED stage-2 kernel: totals enter/leave in engine layout
-    (n_comp*K, N, b2) but ride the carry as per-component (K*b2, N)
-    kernel-layout arrays, each updated in place per block. Shared by
-    Engine._chunk_scan_fn and ShardedRunner._scan_stats so their
-    bit-identity cannot drift.
-
-    The layout repack at entry/exit costs one transient copy of the
-    totals slab per CHUNK dispatch (amortized over the ~dozens of blocks
-    a chunk scans — ≲0.1% of the chunk's compute; it does mean the
-    engine-layout input buffer is not donatable for that dispatch).
-    Within the scan, each block's kernel call updates its carry buffer
-    in place."""
-    b2 = acc_kw["b2"]
-    n_comp = len(components)
-    tots = [totX[c * K:(c + 1) * K].transpose(0, 2, 1).reshape(K * b2, -1)
-            for c in range(n_comp)]
-
-    def body(carry, xs):
-        p, f, a = xs
-        tks, ty = carry
-        ntots, yXXy = block_stats_pallas_acc_core(
-            p, f, a, P, env, mask, tks, components=components, **acc_kw)
-        return (ntots, ty + yXXy), None
-
-    (tots, toty), _ = jax.lax.scan(body, (tots, toty), chunk_arrays)
-    N = tots[0].shape[1]
-    totX = jnp.concatenate(
-        [t.reshape(K, b2, N).transpose(0, 2, 1) for t in tots], axis=0)
-    return totX, toty
 
 
 def nxe_stats(env, Z, Uzb, Y, b2, B, dtype=jnp.float32):

@@ -6,12 +6,12 @@ run on every process; the sharded estimation step itself
 jackknife blocks shard over the global "jack" axis, every process stages
 only the .bed byte ranges its own devices own
 (ShardedRunner.owned_rows -> jax.make_array_from_process_local_data), and
-the totals reduction rides ICI within a slice / DCN across hosts.
+the totals reduction is one XLA all-reduce across the cards.
 
-Pattern (run the same program on every host — scripts/tpu_pod_run.sh):
+Pattern (run the same program on every host, one process per host):
 
     import pyrhe_tpu.parallel.distributed as dist
-    dist.initialize()                  # env/metadata-driven on TPU pods
+    dist.initialize()                  # COORDINATOR_ADDRESS etc. from env
     data = load_dataset(prefix, ...)   # every host reads the small
                                        # tabular files; .bed stays lazy
     eng = Engine(data, spec, cfg)
@@ -31,9 +31,10 @@ from jax.sharding import Mesh
 
 
 def initialize(**kwargs) -> None:
-    """jax.distributed.initialize passthrough. On TPU pods the
-    coordinator/process-id resolve from the TPU metadata; elsewhere set
-    COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID or pass kwargs."""
+    """jax.distributed.initialize passthrough: pass kwargs, or set
+    COORDINATOR_ADDRESS (host:port), NUM_PROCESSES and PROCESS_ID. A
+    failed initialization raises — a multi-host run must never continue
+    as independent single-process runs."""
     if kwargs:
         jax.distributed.initialize(**kwargs)
         return
@@ -45,10 +46,13 @@ def initialize(**kwargs) -> None:
         env["num_processes"] = int(env["num_processes"])
     if "process_id" in env:
         env["process_id"] = int(env["process_id"])
-    try:
-        jax.distributed.initialize(**env)
-    except Exception:
-        pass  # single-process / already initialized
+    missing = {"coordinator_address", "num_processes",
+               "process_id"} - set(env)
+    if missing:
+        raise RuntimeError(
+            "jax.distributed needs COORDINATOR_ADDRESS, NUM_PROCESSES and "
+            f"PROCESS_ID; missing {sorted(missing)}")
+    jax.distributed.initialize(**env)
 
 
 def global_mesh(axis: str = "jack") -> Mesh:

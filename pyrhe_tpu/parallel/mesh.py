@@ -1,9 +1,11 @@
 """Device-mesh construction for the sharded execution path.
 
 The estimation itself lives in pyrhe_tpu.parallel.sharded (jackknife
-blocks sharded over a 1-D "jack" axis, totals merged with one psum over
-ICI/DCN — the TPU-native replacement for the reference's multiprocessing
-+ POSIX shared-memory fan-out, reference base.py:432-437, mp_handler.py).
+blocks sharded over a 1-D "jack" axis, totals merged with one
+all-reduce — the replacement for the reference's multiprocessing + POSIX
+shared-memory fan-out, reference base.py:432-437, mp_handler.py). The
+cards of a host are joined all to all, so the mesh follows the algorithm
+alone.
 """
 from __future__ import annotations
 

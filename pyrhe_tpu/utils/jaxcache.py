@@ -1,15 +1,25 @@
 """Persistent XLA compilation cache.
 
-The TPU backend used in this environment compiles via a remote service
-whose first-compile session setup can take minutes; a persistent on-disk
-cache makes repeat runs with identical graphs skip remote compilation
-entirely. Applied once, respecting any user-set cache dir.
+Where JAX_COMPILATION_CACHE_DIR is set, JAX itself keeps the cache there
+and nothing here overrides it. Otherwise the cache lives in one fixed
+directory inside the checkout (`<repo>/.jax_cache`, git-ignored): the
+directory is part of the cache key, so a fixed path is what lets a
+repeat run with identical graphs skip compilation.
 """
 from __future__ import annotations
 
 import os
 
+CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))), ".jax_cache")
+
 _done = False
+
+
+def cache_dir() -> str:
+    """The directory the compilation cache uses."""
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or CACHE_DIR
 
 
 def enable_persistent_compilation_cache() -> None:
@@ -17,17 +27,10 @@ def enable_persistent_compilation_cache() -> None:
     if _done:
         return
     _done = True
-    try:
-        import jax
+    import jax
 
-        if jax.config.read("jax_compilation_cache_dir"):
-            return
-        cache_dir = os.environ.get(
-            "PYRHE_XLA_CACHE",
-            os.path.expanduser("~/.cache/pyrhe_tpu/xla"))
-        os.makedirs(cache_dir, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-    except Exception:  # pragma: no cover - cache is best-effort
-        pass
+    if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        os.makedirs(CACHE_DIR, exist_ok=True)
+        jax.config.update("jax_compilation_cache_dir", CACHE_DIR)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)

@@ -1,10 +1,9 @@
 #!/usr/bin/env python
 """Measure the host-side .bed block pipeline rate vs thread count.
 
-On attached hardware staging rides PCIe (seconds for a biobank pass), so
-the host read+clean pipeline — read_packed_block -> packed_col_stats ->
-imputation draw -> clean_packed — becomes the wall-clock bound of a
-precompute pass (docs/design/perf.md "Attached-hardware projection").
+Staging rides PCIe (seconds for a biobank pass), so the host read+clean
+pipeline — read_packed_block -> packed_col_stats -> imputation draw ->
+clean_packed — can become the wall-clock bound of a precompute pass.
 This measures each stage and the fused total, in packed MB/s, for a
 ladder of C++ reader thread counts.
 

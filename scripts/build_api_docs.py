@@ -38,8 +38,7 @@ MODULES = [
     ("pyrhe_tpu.models.rhe", "RHE / StreamingRHE"),
     ("pyrhe_tpu.models.rhe_dom", "RHE-DOM (dominance)"),
     ("pyrhe_tpu.models.genie", "GENIE (GxE / NxE)"),
-    ("pyrhe_tpu.ops.moments", "fused moment kernels (jnp path)"),
-    ("pyrhe_tpu.ops.kernels", "Pallas TPU kernels"),
+    ("pyrhe_tpu.ops.moments", "per-block moment statistics"),
     ("pyrhe_tpu.ops.decode", "2-bit genotype decode primitives"),
     ("pyrhe_tpu.parallel.mesh", "device mesh construction"),
     ("pyrhe_tpu.parallel.sharded", "multi-chip sharded runner"),

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Run PyRHE-TPU and the reference implementation side by side on the same
+"""Run PyRHE-JAX and the reference implementation side by side on the same
 data and compare estimates (the role of the reference's run_original.py,
 which shells out to the C++ RHEmc/RHEmc_mem binaries and times them).
 

@@ -4,7 +4,7 @@ reference's test_real.py, which loops 50 UKBB phenotypes by editing a
 shared INI config under an fcntl lock and launching one process each —
 re-reading the genotypes for every phenotype).
 
-TPU-native version amortizes the genome pass twice over:
+This version amortizes the genome pass twice over:
   - every trait column inside one file shares a single engine precompute
     (each residualized trait rides the probe matrix, engine.py docstring);
   - phenotype FILES with identical missing-individual sets are MERGED
@@ -121,8 +121,8 @@ def run_sweep(args) -> dict:
             # per-file report: swap in a fresh logger so each input file
             # gets its own .txt with only its trait sections. The engine
             # captured the ctor-time logger (models/base.py), so retarget
-            # it too — otherwise engine notices (stats-cache cap, Pallas
-            # downgrade warnings, checkpoint resume) vanish from every
+            # it too — otherwise engine notices (stats-cache cap, hybrid
+            # or streaming switch, checkpoint resume) vanish from every
             # saved report
             model.log = Logger(suppress=True, debug_mode=False)
             model.engine.log = model.log

@@ -4,16 +4,14 @@ from setuptools import find_packages, setup
 setup(
     name="pyrhe_tpu",
     version="0.1.0",
-    description=("TPU-native randomized Haseman-Elston regression: "
-                 "RHE, RHE-DOM and GENIE heritability estimation on "
-                 "JAX/XLA/Pallas"),
+    description=("Randomized Haseman-Elston regression: RHE, RHE-DOM "
+                 "and GENIE heritability estimation in JAX on the GPU"),
     packages=find_packages(include=["pyrhe_tpu", "pyrhe_tpu.*"]),
     package_data={"pyrhe_tpu.io": ["_native/*.cpp"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",
         "numpy>=1.23.1",
-        "pandas>=1.5.1",
         "scipy>=1.10.1",
     ],
     entry_points={

@@ -4,9 +4,9 @@ Usage: python _mh_worker.py <process_id> <num_processes> <port> <data_dir>
                             <out_npz> [streaming]
 
 Each process sees 2 local CPU devices (4 global), loads the SAME dataset,
-and runs the sharded engine over the global mesh — the exact pattern a
-TPU pod slice uses (one process per host, jax.distributed.initialize,
-every process constructs the same Engine and calls run_sharded).
+and runs the sharded engine over the global mesh — the pattern of a
+multi-host run (one process per host, jax.distributed.initialize, every
+process constructs the same Engine and calls run_sharded).
 """
 import os
 import sys
@@ -16,8 +16,7 @@ os.environ["JAX_PLATFORMS"] = "cpu"
 pid, nproc, port, data_dir, out_npz = sys.argv[1:6]
 extras = sys.argv[6:]
 streaming = "streaming" in extras
-pallas = "pallas" in extras       # f32 fused kernels (interpret on CPU):
-                                  # streaming rides the ALIASED fast path
+packed = "packed" in extras       # f32 chunked packed-byte scan
 ckpt_dir = next((a.split("=", 1)[1] for a in extras
                  if a.startswith("ckpt=")), None)
 
@@ -49,14 +48,14 @@ data = load_dataset(prefix,
                     cov_file=os.path.join(data_dir, "test.cov"),
                     num_random_vec=8, seed=7)
 cfg = RunConfig(num_random_vec=8, num_jack=10, seed=7,
-                dtype=("float32" if pallas else "float64"),
-                mm_mode=("exact" if pallas else "auto"),
-                use_pallas=pallas,
+                dtype=("float32" if packed else "float64"),
+                mm_mode=("exact" if packed else "auto"),
+                packed_scan=packed,
                 geno_impute_method="binary", streaming=streaming,
                 checkpoint_dir=ckpt_dir)
 eng = Engine(data, ModelSpec.build("rhe"), cfg)
-if pallas:
-    assert eng.use_pallas and eng._acc_fast_path()
+if packed:
+    assert eng.packed_scan
 eng.run_sharded(make_mesh())
 np.savez(out_npz, T_all=eng.T_all, q_all=eng.q_all)
 print(f"worker {pid} done", flush=True)

@@ -16,7 +16,7 @@ from pyrhe_tpu.core.data import load_dataset
 from pyrhe_tpu.core.engine import Engine, ModelSpec, RunConfig
 
 
-def make_engine(ds, ckpt_dir=None, streaming=False, use_pallas=False, J=8,
+def make_engine(ds, ckpt_dir=None, streaming=False, packed_scan=False, J=8,
                 B=4, dtype="float64", every=1, seed=7, cache_blocks=-1,
                 model="rhe"):
     data = load_dataset(ds["prefix"], annot_file=ds["annot1_path"],
@@ -25,9 +25,9 @@ def make_engine(ds, ckpt_dir=None, streaming=False, use_pallas=False, J=8,
     spec = ModelSpec.build(model, "G", data.num_env)
     cfg = RunConfig(num_random_vec=B, num_jack=J, seed=seed,
                     geno_impute_method="binary",
-                    dtype=("float32" if use_pallas else dtype),
-                    mm_mode=("exact" if use_pallas else "auto"),
-                    streaming=streaming, use_pallas=use_pallas,
+                    dtype=("float32" if packed_scan else dtype),
+                    mm_mode=("exact" if packed_scan else "auto"),
+                    streaming=streaming, packed_scan=packed_scan,
                     checkpoint_dir=ckpt_dir, checkpoint_every=every,
                     cache_blocks=cache_blocks)
     return Engine(data, spec, cfg)
@@ -144,17 +144,17 @@ def test_crash_mid_precompute_chunked_pallas(small_dataset, tmp_path,
                                              monkeypatch):
     ck = str(tmp_path / "ck")
     monkeypatch.setattr(Engine, "_chunk_size", lambda self: 2)
-    base = make_engine(small_dataset, use_pallas=True, J=6)
-    assert base.use_pallas
+    base = make_engine(small_dataset, packed_scan=True, J=6)
+    assert base.packed_scan
     base.run_precompute_and_assemble()
 
-    eng = make_engine(small_dataset, ck, use_pallas=True, J=6)
+    eng = make_engine(small_dataset, ck, packed_scan=True, J=6)
     crash_commit_after(eng, n_allowed=1)   # first chunk committed, then die
     with pytest.raises(RuntimeError, match="simulated crash"):
         eng.run_precompute_and_assemble()
     assert eng._ckpt.state() == ("precompute", 2)
 
-    eng2 = make_engine(small_dataset, ck, use_pallas=True, J=6)
+    eng2 = make_engine(small_dataset, ck, packed_scan=True, J=6)
     loaded = spy_loads(eng2)
     eng2.run_precompute_and_assemble()
     # crash hit the second chunk's commit AFTER its data files were saved:
@@ -168,17 +168,17 @@ def test_crash_mid_assemble_streaming_chunked(small_dataset, tmp_path,
                                               monkeypatch):
     ck = str(tmp_path / "ck")
     monkeypatch.setattr(Engine, "_chunk_size", lambda self: 2)
-    base = make_engine(small_dataset, use_pallas=True, streaming=True, J=4)
+    base = make_engine(small_dataset, packed_scan=True, streaming=True, J=4)
     base.run_precompute_and_assemble()
 
-    eng = make_engine(small_dataset, ck, use_pallas=True, streaming=True,
+    eng = make_engine(small_dataset, ck, packed_scan=True, streaming=True,
                       J=4)
     crash_commit_after(eng, phase_at=("assemble", 2))
     with pytest.raises(RuntimeError, match="simulated crash"):
         eng.run_precompute_and_assemble()
     assert eng._ckpt.state() == ("assemble", 0)
 
-    eng2 = make_engine(small_dataset, ck, use_pallas=True, streaming=True,
+    eng2 = make_engine(small_dataset, ck, packed_scan=True, streaming=True,
                        J=4)
     loaded = spy_loads(eng2)
     eng2.run_precompute_and_assemble()
@@ -189,24 +189,24 @@ def test_crash_mid_assemble_streaming_chunked(small_dataset, tmp_path,
 
 def test_crash_mid_precompute_dom_acc(small_dataset, tmp_path,
                                       monkeypatch):
-    """Kill/resume through the dominance aliased path: RHE-DOM streaming
-    pass 1 rides ytg_acc2_matmul with totals converted to engine layout
-    at checkpoint boundaries — a resumed run must reproduce the
+    """Kill/resume through RHE-DOM streaming on the word path (g and g²
+    contractions, totals carried through the chunk scan and saved at
+    checkpoint boundaries) — a resumed run must reproduce the
     uninterrupted run bit-exactly."""
     ck = str(tmp_path / "ck")
     monkeypatch.setattr(Engine, "_chunk_size", lambda self: 1)
-    base = make_engine(small_dataset, use_pallas=True, streaming=True,
+    base = make_engine(small_dataset, packed_scan=True, streaming=True,
                        J=4, model="rhe_dom")
-    assert base._acc_fast_path()
+    assert base.packed_scan and base.cfg.streaming
     base.run_precompute_and_assemble()
 
-    eng = make_engine(small_dataset, ck, use_pallas=True, streaming=True,
+    eng = make_engine(small_dataset, ck, packed_scan=True, streaming=True,
                       J=4, model="rhe_dom")
     crash_commit_after(eng, n_allowed=2)
     with pytest.raises(RuntimeError, match="simulated crash"):
         eng.run_precompute_and_assemble()
 
-    eng2 = make_engine(small_dataset, ck, use_pallas=True, streaming=True,
+    eng2 = make_engine(small_dataset, ck, packed_scan=True, streaming=True,
                        J=4, model="rhe_dom")
     eng2.run_precompute_and_assemble()
     np.testing.assert_array_equal(eng2.T_all, base.T_all)
@@ -220,17 +220,17 @@ def test_crash_mid_assemble_hybrid_chunked(small_dataset, tmp_path,
     the last saved sample instead of recomputing the whole pass."""
     ck = str(tmp_path / "ck")
     monkeypatch.setattr(Engine, "_chunk_size", lambda self: 2)
-    base = make_engine(small_dataset, use_pallas=True, J=6, cache_blocks=2)
+    base = make_engine(small_dataset, packed_scan=True, J=6, cache_blocks=2)
     assert base.cache_limit == 2
     base.run_precompute_and_assemble()
 
-    eng = make_engine(small_dataset, ck, use_pallas=True, J=6,
+    eng = make_engine(small_dataset, ck, packed_scan=True, J=6,
                       cache_blocks=2)
     crash_commit_after(eng, phase_at=("assemble", 4))
     with pytest.raises(RuntimeError, match="simulated crash"):
         eng.run_precompute_and_assemble()
 
-    eng2 = make_engine(small_dataset, ck, use_pallas=True, J=6,
+    eng2 = make_engine(small_dataset, ck, packed_scan=True, J=6,
                        cache_blocks=2)
     loaded = spy_loads(eng2)
     eng2.run_precompute_and_assemble()
@@ -249,7 +249,7 @@ def test_cache_blocks_respected_on_blocks_path(small_dataset, tmp_path):
     base.run_precompute_and_assemble()
 
     eng0 = make_engine(small_dataset, cache_blocks=0)
-    assert not eng0.use_pallas                 # per-block path on CPU
+    assert not eng0.packed_scan                 # per-block path on CPU
     eng0.precompute()
     assert eng0._cache == {}, "cache_blocks=0 must cache nothing"
     eng0.assemble()

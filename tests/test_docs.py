@@ -1,6 +1,6 @@
 """API reference build: one command, current, covering the public
-surfaces (VERDICT r3 #7 — the role of the reference's Sphinx docs/api
-tree, built hermetically by scripts/build_api_docs.py)."""
+surfaces (the role of the reference's Sphinx docs/api tree, built
+hermetically by scripts/build_api_docs.py)."""
 import os
 import subprocess
 import sys
@@ -31,7 +31,7 @@ def test_api_docs_cover_required_surfaces():
         "pyrhe_tpu_models_genie.md": ["class `GENIE`",
                                       "class `StreamingGENIE`"],
         "pyrhe_tpu_ops_moments.md": ["block_stats"],
-        "pyrhe_tpu_ops_kernels.md": ["plane_permutation"],
+        "pyrhe_tpu_ops_decode.md": ["decode_packed_jnp"],
         "pyrhe_tpu_parallel_sharded.md": ["class `ShardedRunner`"],
         "pyrhe_tpu_io_bed.md": ["class `BedFile`"],
     }

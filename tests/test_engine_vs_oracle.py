@@ -250,7 +250,7 @@ def test_genie_multi_env_simulation_recovery(tmp_path):
 ])
 def test_mm_mode_end_to_end_envelope(small_dataset, mm_mode, rtol_sig,
                                      rtol_h2):
-    """End-to-end precision gate for the reduced-precision MXU modes
+    """End-to-end precision gate for the reduced-precision matmul modes
     (ops/moments.py:21-28): a full estimation run (sigma AND h2) in
     mm_mode must stay inside the documented envelope of the float64
     exact run. Guards the dosage-exact bf16 insight (the genotype

@@ -1,14 +1,12 @@
-"""Pallas fused decode+matmul kernel correctness (interpret mode on CPU)."""
+"""Block-stats paths on packed genotypes: the host clean of missing codes
+and the packed-byte decode (the accelerator's main path) against the
+host-decoded dosage path."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from pyrhe_tpu.io.bed import encode_dosage
-from pyrhe_tpu.ops.decode import decode_packed_jnp, impute
-from pyrhe_tpu.ops.kernels import pad_to, plane_permutation
-from pyrhe_tpu.ops.moments import (block_stats, block_stats_pallas)
-
-TM, TN = 256, 512
+from pyrhe_tpu.ops.moments import block_stats, split_hi_lo
 
 
 def make_inputs(m=300, n=700, seed=0, missing=True):
@@ -16,87 +14,8 @@ def make_inputs(m=300, n=700, seed=0, missing=True):
     dos = rng.integers(0, 3, size=(m, n)).astype(np.uint8)
     if missing:
         dos[rng.random((m, n)) < 0.05] = 255
-    packed = encode_dosage(dos)
     fill = rng.integers(0, 3, size=m).astype(np.float64)
-    m_pad, n_pad = pad_to(m, TM), pad_to(n, TN)
-    packed_pad = np.zeros((m_pad, n_pad // 4), np.uint8)
-    packed_pad[:m, :packed.shape[1]] = packed
-    fill_pad = np.zeros(m_pad)
-    fill_pad[:m] = fill
-    perm = plane_permutation(n_pad, TN)
-    # natural-order imputed dosage for the reference computation
-    g = dos.astype(np.float64)
-    g[dos == 255] = np.repeat(fill[:, None], n, 1)[dos == 255]
-    return packed_pad, fill_pad, g, perm, m, n, m_pad, n_pad
-
-
-@pytest.mark.parametrize("square", [False, True])
-def test_gp_ytg_kernels(square):
-    from pyrhe_tpu.ops.kernels import gp_matmul, ytg_matmul
-
-    packed_pad, fill_pad, g, perm, m, n, m_pad, n_pad = make_inputs()
-    rng = np.random.default_rng(1)
-    W = 8
-    C = rng.normal(size=(n_pad, W))
-    C[n:] = 0.0
-    C_perm = C[perm]
-    gg = g ** 2 if square else g
-
-    gp = np.asarray(gp_matmul(
-        jnp.asarray(packed_pad), jnp.asarray(fill_pad[:, None], jnp.float32),
-        jnp.asarray(C_perm, jnp.float32), tm=TM, tn=TN, dtype=jnp.float32,
-        interpret=True, square=square))
-    np.testing.assert_allclose(gp[:m], gg @ C[:n], rtol=2e-5, atol=1e-3)
-    assert np.all(gp[m:] == 0)
-
-    Yt = rng.normal(size=(W, m_pad))
-    Yt[:, m:] = 0.0
-    ytg = np.asarray(ytg_matmul(
-        jnp.asarray(packed_pad), jnp.asarray(fill_pad[:, None], jnp.float32),
-        jnp.asarray(Yt, jnp.float32), tm=TM, tn=TN, dtype=jnp.float32,
-        interpret=True, square=square))
-    expect = Yt[:, :m] @ gg                    # (W, n) natural order
-    expect_pad = np.zeros((W, n_pad))
-    expect_pad[:, :n] = expect
-    np.testing.assert_allclose(ytg, expect_pad[:, perm], rtol=2e-5,
-                               atol=1e-3)
-
-
-@pytest.mark.parametrize("square", [False, True])
-def test_word_swar_kernels(square):
-    """word=True: int32-word SWAR decode (16 codes/lane, 16-plane
-    permutation) equals the dense reference on pre-cleaned bytes."""
-    from pyrhe_tpu.io.bed import clean_packed
-    from pyrhe_tpu.ops.kernels import gp_matmul, ytg_matmul
-
-    packed_pad, fill_pad, g, perm4, m, n, m_pad, n_pad = make_inputs(seed=8)
-    clean_pad = np.zeros_like(packed_pad)
-    clean_packed(packed_pad[:m], fill_pad[:m], out=clean_pad[:m])
-    words = clean_pad.view(np.int32)           # (m_pad, n_pad // 16)
-    perm = plane_permutation(n_pad, TN, planes=16)
-    gg = g ** 2 if square else g
-    zf = jnp.zeros((m_pad, 1), jnp.float32)
-
-    rng = np.random.default_rng(9)
-    W = 8
-    C = rng.normal(size=(n_pad, W))
-    C[n:] = 0.0
-    gp = np.asarray(gp_matmul(
-        jnp.asarray(words), zf, jnp.asarray(C[perm], jnp.float32),
-        tm=TM, tn=TN, dtype=jnp.float32, interpret=True, square=square,
-        clean=True, word=True))
-    np.testing.assert_allclose(gp[:m], gg @ C[:n], rtol=2e-5, atol=1e-3)
-
-    Yt = rng.normal(size=(W, m_pad))
-    Yt[:, m:] = 0.0
-    ytg = np.asarray(ytg_matmul(
-        jnp.asarray(words), zf, jnp.asarray(Yt, jnp.float32),
-        tm=TM, tn=TN, dtype=jnp.float32, interpret=True, square=square,
-        clean=True, word=True))
-    expect_pad = np.zeros((W, n_pad))
-    expect_pad[:, :n] = Yt[:, :m] @ gg
-    np.testing.assert_allclose(ytg, expect_pad[:, perm], rtol=2e-5,
-                               atol=1e-3)
+    return dos, fill
 
 
 @pytest.mark.parametrize("components", [
@@ -105,45 +24,33 @@ def test_word_swar_kernels(square):
     (("add", None), ("add", 0)),
 ])
 def test_block_stats_pallas_matches_jnp(components):
-    packed_pad, fill_pad, g, perm, m, n, m_pad, n_pad = make_inputs(seed=2)
+    """Host-cleaned packed bytes (missing codes rewritten to the fills,
+    io/bed.clean_packed) decoded on the device give the same block stats
+    as the host-decoded uint8 dosages imputed on the device."""
+    from pyrhe_tpu.io.bed import clean_packed
+
+    dos, fill = make_inputs(seed=2)
+    m, n = dos.shape
     rng = np.random.default_rng(3)
     K, B, T = 2, 4, 1
-    b2 = B
-    annot = np.zeros((m_pad, K), np.float32)
+    annot = np.zeros((m, K), np.float32)
     annot[np.arange(m), rng.integers(0, K, m)] = 1.0
-    P = rng.normal(size=(n, b2 + T)).astype(np.float32)
+    P = rng.normal(size=(n, B + T)).astype(np.float32)
     env = (rng.random((n, 1)) < 0.5).astype(np.float32)
+    kw = dict(n_indiv=n, components=components, b2=B, dtype=jnp.float32,
+              mm_mode="exact")
 
-    # jnp reference path on unpadded data
-    dos = np.where(np.isnan(g), 255, g).astype(np.uint8)  # g has no nan now
-    XXP0, y0, M0 = block_stats(
-        jnp.asarray(encode_dosage(dos)), jnp.asarray(fill_pad[:m],
-                                                     jnp.float32),
-        jnp.asarray(annot[:m]), jnp.asarray(P), jnp.asarray(env),
-        n_indiv=n, components=components, b2=b2, packed=True,
-        dtype=jnp.float32, mm_mode="exact")
-
-    P_pad = np.zeros((n_pad, b2 + T), np.float32)
-    P_pad[:n] = P
-    env_pad = np.zeros((n_pad, 1), np.float32)
-    env_pad[:n] = env
-    mask = np.zeros(n_pad, np.float32)
-    mask[:n] = 1.0
-    XXP1, y1, M1 = block_stats_pallas(
-        jnp.asarray(packed_pad), jnp.asarray(fill_pad, jnp.float32),
-        jnp.asarray(annot), jnp.asarray(P_pad[perm]),
-        jnp.asarray(env_pad[perm]), jnp.asarray(mask[perm]),
-        n_indiv=n, components=components, b2=b2, dtype=jnp.float32,
-        kernel_dtype=jnp.float32, interpret=True, tm=TM, tn=TN)
-
-    np.testing.assert_allclose(np.asarray(y1), np.asarray(y0), rtol=1e-4,
-                               atol=1e-3)
-    # XXP rows come back permuted; compare via inverse permutation
-    inv = np.argsort(perm)
-    XXP1n = np.asarray(XXP1)[:, inv, :][:, :n, :]
-    np.testing.assert_allclose(XXP1n, np.asarray(XXP0), rtol=1e-4,
-                               atol=5e-3)
-    np.testing.assert_allclose(np.asarray(M1), np.asarray(M0))
+    host = block_stats(jnp.asarray(dos), jnp.asarray(fill, jnp.float32),
+                       jnp.asarray(annot), jnp.asarray(P), jnp.asarray(env),
+                       packed=False, **kw)
+    clean = clean_packed(encode_dosage(dos), fill)
+    dev = block_stats(jnp.asarray(clean), jnp.zeros(m, jnp.float32),
+                      jnp.asarray(annot), jnp.asarray(P), jnp.asarray(env),
+                      packed=True, valid_mask=jnp.ones(n, jnp.float32),
+                      **kw)
+    for a, b in zip(dev, host):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-5,
+                                   atol=1e-4)
 
 
 def test_clean_packed_removes_missing():
@@ -166,144 +73,76 @@ def test_clean_packed_removes_missing():
         wide[:, :packed.shape[1]], 213), expect)
 
 
-@pytest.mark.parametrize("square", [False, True])
-def test_clean_swar_kernels(square):
-    """Clean path: SWAR decode (gp) and transposed stage-2 (ytg) equal the
-    dense reference on pre-cleaned bytes."""
+def test_valid_mask_equals_filtered_matrix():
+    """Decoding the full population with dropped individuals masked out
+    (zero probe rows, zero mask) gives the stats of the host-filtered
+    matrix at the kept rows, and zero rows elsewhere."""
     from pyrhe_tpu.io.bed import clean_packed
-    from pyrhe_tpu.ops.kernels import gp_matmul, ytg_matmul
 
-    packed_pad, fill_pad, g, perm, m, n, m_pad, n_pad = make_inputs(seed=5)
-    clean_pad = np.zeros_like(packed_pad)
-    clean_packed(packed_pad[:m], fill_pad[:m], out=clean_pad[:m])
-    gg = g ** 2 if square else g
+    dos, fill = make_inputs(m=200, n=500, seed=4)
+    m, n = dos.shape
+    rng = np.random.default_rng(5)
+    keep = np.sort(rng.choice(n, size=430, replace=False))
+    comps = (("add", None), ("dom", None), ("add", 0))
+    annot = np.zeros((m, 3), np.float32)
+    annot[np.arange(m), rng.integers(0, 3, m)] = 1.0
+    P = rng.normal(size=(len(keep), 5)).astype(np.float32)
+    env = rng.normal(size=(len(keep), 1)).astype(np.float32)
+    kw = dict(n_indiv=len(keep), components=comps, b2=4, dtype=jnp.float32,
+              mm_mode="exact")
 
-    rng = np.random.default_rng(6)
-    W = 8
-    C = rng.normal(size=(n_pad, W))
-    C[n:] = 0.0
-    gp = np.asarray(gp_matmul(
-        jnp.asarray(clean_pad), jnp.asarray(fill_pad[:, None] * 0,
-                                            jnp.float32),
-        jnp.asarray(C[perm], jnp.float32), tm=TM, tn=TN, dtype=jnp.float32,
-        interpret=True, square=square, clean=True))
-    np.testing.assert_allclose(gp[:m], gg @ C[:n], rtol=2e-5, atol=1e-3)
-
-    Yt = rng.normal(size=(W, m_pad))
-    Yt[:, m:] = 0.0
-    ytg = np.asarray(ytg_matmul(
-        jnp.asarray(clean_pad), jnp.asarray(fill_pad[:, None] * 0,
-                                            jnp.float32),
-        jnp.asarray(Yt, jnp.float32), tm=TM, tn=TN, dtype=jnp.float32,
-        interpret=True, square=square, clean=True))
-    expect = Yt[:, :m] @ gg                    # (W, n) natural order
-    expect_pad = np.zeros((W, n_pad))
-    expect_pad[:, :n] = expect
-    np.testing.assert_allclose(ytg, expect_pad[:, perm], rtol=2e-5,
-                               atol=1e-3)
-
-
-@pytest.mark.parametrize("word", [False, True])
-def test_ytg_wide_variant_matches_planewise(word):
-    """planewise=False (planes concatenated, one MXU pass per grid cell)
-    matches the per-plane accumulate — the lane plane order IS the
-    output layout, so no relayout is involved; only the reduction order
-    differs (one wide dot vs 4/16 partial accumulates), hence allclose
-    rather than exact."""
-    from pyrhe_tpu.io.bed import clean_packed
-    from pyrhe_tpu.ops.kernels import ytg_matmul
-
-    packed_pad, fill_pad, g, _, m, n, m_pad, n_pad = make_inputs(seed=12)
-    clean_pad = np.zeros_like(packed_pad)
-    clean_packed(packed_pad[:m], fill_pad[:m], out=clean_pad[:m])
-    blk = (jnp.asarray(clean_pad.view(np.int32)) if word
-           else jnp.asarray(clean_pad))
-    zf = jnp.zeros((m_pad, 1), jnp.float32)
-    rng = np.random.default_rng(13)
-    Yt = rng.normal(size=(6, m_pad))
-    Yt[:, m:] = 0.0
-    kw = dict(tm=TM, tn=TN, dtype=jnp.float32, interpret=True, clean=True,
-              word=word)
-    a = np.asarray(ytg_matmul(blk, zf, jnp.asarray(Yt, jnp.float32),
-                              planewise=True, **kw))
-    b = np.asarray(ytg_matmul(blk, zf, jnp.asarray(Yt, jnp.float32),
-                              planewise=False, **kw))
-    np.testing.assert_allclose(a, b, rtol=1e-3, atol=1e-4)
+    # fills drawn on the filtered data, as Engine._fill_from_stats does
+    filt = block_stats(jnp.asarray(dos[:, keep]),
+                       jnp.asarray(fill, jnp.float32), jnp.asarray(annot),
+                       jnp.asarray(P), jnp.asarray(env), packed=False, **kw)
+    P_full = np.zeros((n, 5), np.float32)
+    P_full[keep] = P
+    env_full = np.zeros((n, 1), np.float32)
+    env_full[keep] = env
+    mask = np.zeros(n, np.float32)
+    mask[keep] = 1.0
+    full = block_stats(jnp.asarray(clean_packed(encode_dosage(dos), fill)),
+                       jnp.zeros(m, jnp.float32), jnp.asarray(annot),
+                       jnp.asarray(P_full), jnp.asarray(env_full),
+                       packed=True, valid_mask=jnp.asarray(mask), **kw)
+    XXP = np.asarray(full[0])
+    np.testing.assert_allclose(XXP[:, keep], np.asarray(filt[0]),
+                               rtol=1e-4, atol=1e-3)
+    assert np.all(XXP[:, np.setdiff1d(np.arange(n), keep)] == 0)
+    np.testing.assert_allclose(np.asarray(full[1]), np.asarray(filt[1]),
+                               rtol=1e-4, atol=1e-3)
 
 
-@pytest.mark.parametrize("word", [False, True])
-def test_ytg_acc_matmul(word):
-    """Aliased-totals stage 2: new_tot = tot + mask * (Yt @ g - rank1),
-    exactly equal to composing the standard ytg_matmul with the
-    out-of-kernel transform (same dot blocking via planewise)."""
-    from pyrhe_tpu.io.bed import clean_packed
-    from pyrhe_tpu.ops.kernels import ytg_acc_matmul, ytg_matmul
+@pytest.mark.parametrize("scale", [1e-3, 1.0, 3e4])
+def test_split_hi_lo_keeps_16_bits(scale):
+    """split2's probe split: hi is exact in bf16, hi + lo recovers x to
+    ~2^-17 relative, and lo is not silently zero (the XLA excess-
+    precision hazard, docs/design/precision.md)."""
+    import jax
 
-    packed_pad, fill_pad, g, perm, m, n, m_pad, n_pad = make_inputs(seed=20)
-    clean_pad = np.zeros_like(packed_pad)
-    clean_packed(packed_pad[:m], fill_pad[:m], out=clean_pad[:m])
-    blk = (jnp.asarray(clean_pad.view(np.int32)) if word
-           else jnp.asarray(clean_pad))
-    zf = jnp.zeros((m_pad, 1), jnp.float32)
-    rng = np.random.default_rng(21)
-    Q = 6
-    Yt = rng.normal(size=(Q, m_pad)).astype(np.float32)
-    Yt[:, m:] = 0.0
-    rank1 = rng.normal(size=(Q, 1)).astype(np.float32)
-    mask = (perm < n).astype(np.float32)[None, :]
-    tot = rng.normal(size=(Q, n_pad)).astype(np.float32)
-    ones = np.ones((1, n_pad), np.float32)
-    env_scale = rng.normal(size=(1, n_pad)).astype(np.float32)
-    kw = dict(tm=TM, tn=TN, dtype=jnp.float32, interpret=True, clean=True,
-              word=word)
-    for pw in (True, False):
-        for scale in (ones, env_scale):      # additive and GxE epilogues
-            got = np.asarray(ytg_acc_matmul(
-                blk, zf, jnp.asarray(Yt), jnp.asarray(rank1),
-                jnp.asarray(scale), jnp.asarray(mask), jnp.asarray(tot),
-                planewise=pw, **kw))
-            std = np.asarray(ytg_matmul(blk, zf, jnp.asarray(Yt),
-                                        planewise=pw, **kw))
-            expect = tot + ((std - rank1) * scale) * mask
-            np.testing.assert_array_equal(got, expect)
+    x = np.random.default_rng(1).normal(size=4096).astype(np.float32) * scale
+    hi, lo = jax.jit(split_hi_lo)(jnp.asarray(x))
+    hi64 = np.asarray(hi, np.float64)
+    lo64 = np.asarray(lo, np.float64)
+    np.testing.assert_array_equal(
+        np.asarray(hi.astype(jnp.float32)).view(np.uint32) & 0xFFFF, 0)
+    err = np.abs(hi64 + lo64 - x) / np.abs(x)
+    assert err.max() < 2.0 ** -16
+    assert np.count_nonzero(lo64) > 0.9 * x.size
 
 
-@pytest.mark.parametrize("word", [False, True])
-def test_ytg_acc2_matmul(word):
-    """Dominance aliased stage 2: new_tot = tot + mask * (Yt1 @ g +
-    Yt2 @ g² - rank1), exactly equal to composing the standard g and g²
-    ytg_matmul calls with the out-of-kernel dominance transform
-    (_moment_algebra's mm2_t dom branch: XXG + XXG2, - rank1, * mask) —
-    including independent planewise decisions for the two contractions."""
-    from pyrhe_tpu.io.bed import clean_packed
-    from pyrhe_tpu.ops.kernels import ytg_acc2_matmul, ytg_matmul
+@pytest.mark.parametrize("mm_mode,rtol", [("split2", 5e-5), ("bf16", 2e-2)])
+def test_mm_modes_match_exact(mm_mode, rtol):
+    """Both reduced-precision matmul modes stay inside their stated
+    envelope of the exact float32 product on an integer dosage operand."""
+    import jax
 
-    packed_pad, fill_pad, g, perm, m, n, m_pad, n_pad = make_inputs(seed=30)
-    clean_pad = np.zeros_like(packed_pad)
-    clean_packed(packed_pad[:m], fill_pad[:m], out=clean_pad[:m])
-    blk = (jnp.asarray(clean_pad.view(np.int32)) if word
-           else jnp.asarray(clean_pad))
-    zf = jnp.zeros((m_pad, 1), jnp.float32)
-    rng = np.random.default_rng(31)
-    Q = 6
-    Yt1 = rng.normal(size=(Q, m_pad)).astype(np.float32)
-    Yt2 = rng.normal(size=(Q, m_pad)).astype(np.float32)
-    Yt1[:, m:] = 0.0
-    Yt2[:, m:] = 0.0
-    rank1 = rng.normal(size=(Q, 1)).astype(np.float32)
-    mask = (perm < n).astype(np.float32)[None, :]
-    tot = rng.normal(size=(Q, n_pad)).astype(np.float32)
-    kw = dict(tm=TM, tn=TN, dtype=jnp.float32, interpret=True, clean=True,
-              word=word)
-    for pw in (True, False):
-        for pw2 in (True, False):
-            got = np.asarray(ytg_acc2_matmul(
-                blk, zf, jnp.asarray(Yt1), jnp.asarray(Yt2),
-                jnp.asarray(rank1), jnp.asarray(mask), jnp.asarray(tot),
-                planewise=pw, planewise2=pw2, **kw))
-            std1 = np.asarray(ytg_matmul(blk, zf, jnp.asarray(Yt1),
-                                         planewise=pw, **kw))
-            std2 = np.asarray(ytg_matmul(blk, zf, jnp.asarray(Yt2),
-                                         planewise=pw2, square=True, **kw))
-            expect = tot + ((std1 + std2) - rank1) * mask
-            np.testing.assert_array_equal(got, expect)
+    from pyrhe_tpu.ops.moments import _mm
+
+    rng = np.random.default_rng(9)
+    g = rng.integers(0, 3, size=(64, 2048)).astype(np.float32)
+    C = rng.normal(size=(2048, 12)).astype(np.float32)
+    ref = g.astype(np.float64) @ C.astype(np.float64)
+    got = np.asarray(jax.jit(lambda a, b: _mm(a, b, mm_mode, jnp.float32))(
+        jnp.asarray(g), jnp.asarray(C)))
+    assert np.abs(got - ref).max() <= rtol * np.abs(ref).max()

@@ -1,6 +1,6 @@
 """True multi-process (multi-host pattern) execution test: 2 CPU
 processes x 2 devices under jax.distributed, gloo collectives across the
-process boundary — the same program shape a TPU pod runs. Each process
+process boundary — the same program shape a multi-host run has. Each process
 stages only the .bed blocks its own devices own; the result must equal
 the sequential single-process engine exactly (float64)."""
 import os
@@ -21,7 +21,7 @@ def _free_port():
 
 
 def _run_workers(data_dir, tmp, streaming=False, ckpt=None,
-                 want_logs=False, pallas=False):
+                 want_logs=False, packed=False):
     port = _free_port()
     outs, procs = [], []
     env = {k: v for k, v in os.environ.items()
@@ -33,8 +33,8 @@ def _run_workers(data_dir, tmp, streaming=False, ckpt=None,
                str(pid), "2", str(port), data_dir, out]
         if streaming:
             cmd.append("streaming")
-        if pallas:
-            cmd.append("pallas")
+        if packed:
+            cmd.append("packed")
         if ckpt:
             cmd.append(f"ckpt={ckpt}")
         procs.append(subprocess.Popen(cmd, env=env,
@@ -80,11 +80,10 @@ def test_two_process_matches_sequential(small_dataset, tmp_path, streaming):
 
 
 def test_two_process_pallas_streaming_acc(small_dataset, tmp_path):
-    """The ALIASED-totals fast path across a REAL process boundary: 2
-    gloo processes run streaming pass 1 through the acc kernels
-    (interpret mode on CPU, f32) under shard_map — both ranks must hold
-    the identical replicated result, matching the sequential Pallas
-    engine to f32 accumulate-order tolerance."""
+    """The packed-word streaming scan across a REAL process boundary: 2
+    gloo processes run streaming pass 1 (f32) under shard_map — both
+    ranks must hold the identical replicated result, matching the
+    sequential word-path engine to f32 accumulate-order tolerance."""
     from pyrhe_tpu.core.data import load_dataset
     from pyrhe_tpu.core.engine import Engine, ModelSpec, RunConfig
 
@@ -93,14 +92,14 @@ def test_two_process_pallas_streaming_acc(small_dataset, tmp_path):
                         pheno_file=ds["pheno_path"],
                         cov_file=ds["cov_path"], num_random_vec=8, seed=7)
     cfg = RunConfig(num_random_vec=8, num_jack=10, seed=7,
-                    dtype="float32", mm_mode="exact", use_pallas=True,
+                    dtype="float32", mm_mode="exact", packed_scan=True,
                     geno_impute_method="binary", streaming=True)
     eng = Engine(data, ModelSpec.build("rhe"), cfg)
-    assert eng.use_pallas and eng._acc_fast_path()
+    assert eng.packed_scan and eng.cfg.streaming
     eng.run_precompute_and_assemble()
 
     ranks = _run_workers(ds["dir"], str(tmp_path), streaming=True,
-                         pallas=True)
+                         packed=True)
     np.testing.assert_array_equal(ranks[0]["T_all"], ranks[1]["T_all"])
     np.testing.assert_array_equal(ranks[0]["q_all"], ranks[1]["q_all"])
     for rank in ranks:

@@ -116,9 +116,9 @@ def test_sharded_genie_streaming(small_dataset):
 
 
 def test_sharded_pallas_interpret(small_dataset):
-    """The fused Pallas kernels under shard_map (interpret mode on CPU):
-    the sharded hot path a real TPU pod takes. float32 + split2 like the
-    TPU default; compared to the jnp sharded path at f32 tolerance."""
+    """The packed-word scan under shard_map: the sharded hot path a
+    multi-card host takes. float32 + split2 like the accelerator
+    default; compared to the per-block float32 path at f32 tolerance."""
     import jax.numpy as jnp
 
     from pyrhe_tpu.core.data import load_dataset
@@ -126,19 +126,19 @@ def test_sharded_pallas_interpret(small_dataset):
 
     ds = small_dataset
 
-    def mk(use_pallas):
+    def mk(packed_scan):
         data = load_dataset(ds["prefix"], annot_file=ds["annot1_path"],
                             pheno_file=ds["pheno_path"],
                             num_random_vec=4, seed=7)
         cfg = RunConfig(num_random_vec=4, num_jack=4, seed=7,
                         geno_impute_method="mean", dtype="float32",
-                        use_pallas=use_pallas)
+                        packed_scan=packed_scan)
         return Engine(data, ModelSpec.build("rhe"), cfg)
 
     eng_ref = mk(False)
     eng_ref.run_precompute_and_assemble()
     eng_pl = mk(True)
-    assert eng_pl.use_pallas and eng_pl.dtype == jnp.float32
+    assert eng_pl.packed_scan and eng_pl.dtype == jnp.float32
     eng_pl.run_sharded(make_mesh(2))
     np.testing.assert_allclose(eng_pl.T_all, eng_ref.T_all,
                                rtol=2e-4, atol=2e-4)
@@ -148,17 +148,16 @@ def test_sharded_pallas_interpret(small_dataset):
 
 @pytest.mark.parametrize("model,genie_model,env", [
     ("rhe", "G", False),
-    ("genie", "G+GxE+NxE", True),     # env column as the kernel's scale
-    ("rhe_dom", "G", False),          # dominance via ytg_acc2_matmul
+    ("genie", "G+GxE+NxE", True),     # env-scaled probe variants
+    ("rhe_dom", "G", False),          # dominance: g and g² contractions
 ])
 def test_sharded_pallas_streaming_acc_matches_cached(small_dataset,
                                                      monkeypatch, model,
                                                      genie_model, env):
-    """Sharded streaming under Pallas takes the aliased-totals fast path
-    (ShardedRunner._scan_stats keep=False) — including the GxE env
-    plumbing and the dominance two-contraction kernel through shard_map;
-    it must stay BIT-identical to the fully-cached sharded run, whose
-    pass 1 uses the standard materializing kernels."""
+    """Sharded streaming on the word path (ShardedRunner._scan_stats
+    keep=False in pass 1, recomputed stats in pass 2) — including the GxE
+    env plumbing and the dominance contractions through shard_map; it
+    must stay BIT-identical to the fully-cached sharded run."""
     from pyrhe_tpu.core.data import load_dataset
     from pyrhe_tpu.core.engine import Engine, ModelSpec, RunConfig
 
@@ -171,13 +170,13 @@ def test_sharded_pallas_streaming_acc_matches_cached(small_dataset,
                             num_random_vec=4, seed=7)
         cfg = RunConfig(num_random_vec=4, num_jack=4, seed=7,
                         geno_impute_method="binary", dtype="float32",
-                        mm_mode="exact", use_pallas=True,
+                        mm_mode="exact", packed_scan=True,
                         streaming=streaming)
         return Engine(data, ModelSpec.build(model, genie_model,
                                             data.num_env), cfg)
 
     eng_c = mk(False)
-    assert eng_c.use_pallas and eng_c._acc_fast_path()
+    assert eng_c.packed_scan
     eng_c.run_sharded(make_mesh(2))
     eng_s = mk(True)
     eng_s.run_sharded(make_mesh(2))
@@ -187,7 +186,7 @@ def test_sharded_pallas_streaming_acc_matches_cached(small_dataset,
 
 def test_sharded_pallas_filtered(filtered_dataset):
     """Filtered individuals (missing pheno rows -> keep_idx) on the
-    sharded Pallas path: staging stays packed/cleaned and the mask
+    sharded word path: staging stays packed/cleaned and the mask
     zero-weights dropped rows — parity vs the sequential jnp engine on
     the host-filtered matrix."""
     from pyrhe_tpu.core.data import load_dataset
@@ -195,19 +194,19 @@ def test_sharded_pallas_filtered(filtered_dataset):
 
     ds = filtered_dataset
 
-    def mk(use_pallas):
+    def mk(packed_scan):
         data = load_dataset(ds["prefix"], annot_file=ds["annot1_path"],
                             pheno_file=ds["pheno_path"],
                             num_random_vec=4, seed=7)
         cfg = RunConfig(num_random_vec=4, num_jack=4, seed=7,
                         geno_impute_method="binary", dtype="float32",
-                        mm_mode="exact", use_pallas=use_pallas)
+                        mm_mode="exact", packed_scan=packed_scan)
         return Engine(data, ModelSpec.build("rhe"), cfg)
 
     eng_ref = mk(False)
     eng_ref.run_precompute_and_assemble()
     eng_pl = mk(True)
-    assert eng_pl.use_pallas and eng_pl.data.bed.keep_idx is not None
+    assert eng_pl.packed_scan and eng_pl.data.bed.keep_idx is not None
     eng_pl.run_sharded(make_mesh(2))
     np.testing.assert_allclose(eng_pl.T_all, eng_ref.T_all,
                                rtol=5e-4, atol=5e-3)
@@ -280,7 +279,7 @@ def test_sharded_kill_resume_mid_pass1(small_dataset, tmp_path,
                                        monkeypatch, streaming):
     """Kill after 2 committed supersteps of pass 1 on a multi-device mesh;
     the resumed run must skip them and reproduce the uninterrupted run
-    bit-exactly (VERDICT r2 #4)."""
+    bit-exactly."""
     _multi_superstep_plan(monkeypatch)
     ck = str(tmp_path / "ck")
     mk_plain = _ck_engines(small_dataset, streaming=streaming)

@@ -45,7 +45,7 @@ def test_sweep_reports_carry_engine_messages(small_dataset, tmp_path,
     """Engine messages emitted during the (lazy) shared precompute must
     land in the per-file report: the sweep retargets the ENGINE's logger
     when it swaps in each file's fresh Logger — without that, cache-cap
-    notes, Pallas downgrade warnings and checkpoint-resume messages
+    notes, streaming-switch notes and checkpoint-resume messages
     vanish from every saved .txt (round-5 review fix)."""
     from pyrhe_tpu.core.engine import Engine
 
